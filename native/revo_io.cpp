@@ -1,6 +1,6 @@
 // Native host-side IO for revo_tpu: PNG decode + threaded prefetch queue.
 //
-// TPU-native replacement for the reference's IO producer thread
+// Replacement for the reference's IO producer thread
 // (io/iowrapperRGBD.cpp:257-352): a pool of decoder threads reads TUM-format
 // RGB (8-bit, converted to gray) and depth (16-bit) PNGs ahead of the
 // consumer, handing frames over through a bounded ring — the same

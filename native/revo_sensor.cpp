@@ -1,7 +1,7 @@
 // Live-sensor capture engine for revo_tpu: V4L2 streaming + depth
 // registration, with an injectable syscall shim for hardware-free testing.
 //
-// TPU-native replacement for the reference's live-sensor stack
+// Replacement for the reference's live-sensor stack
 // (io/realsensesensor.cpp:77-139, orbbec_astra_pro/OrbbecAstraEngineUVC.cpp
 // :93-140, OrbbecAstraEngineFFMPEG.cpp:315+, OrbbecAstraOpenNIEngine.cpp
 // :298+): where the reference goes through librealsense / libuvc / OpenNI2 /

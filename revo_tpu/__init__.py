@@ -1,4 +1,4 @@
-"""revo_tpu — a TPU-native edge-based visual-odometry / SLAM framework.
+"""revo_tpu — an edge-based RGB-D visual-odometry / SLAM framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 fabianschenk/REVO (Robust Edge-based Visual Odometry, BMVC17/IROS17): RGB-D

@@ -1,16 +1,15 @@
 """Capacity auto-calibration: size the fixed edge-cloud shapes to the scene.
 
 The reference keeps dynamically-sized edge clouds (imgpyramidrgbd.cpp:226);
-TPU shapes are static, so `PyramidConfig.edge_capacity` pads every level to
-a fixed lane count and the solver gathers (and masks) all of them.  The
-gather cost is per-index (see solver notes), so padded lanes cost real time:
-calibrating capacity to the scene's measured edge counts (plus margin)
-removes 10-25% of the solver's gather indices with identical tracking
-results as long as no frame overflows (overflow degrades gracefully to the
-uniform stride decimation, ops/backproject.py).
+jitted shapes are static, so `PyramidConfig.edge_capacity` pads every level
+to a fixed lane count and the solver gathers (and masks) all of them.
+Calibrating capacity to the scene's measured edge counts (plus margin)
+removes the padded gather indices with identical tracking results as long
+as no frame overflows (overflow degrades gracefully to the uniform stride
+decimation, ops/backproject.py).
 
-This is the standard TPU serving "shape bucket" pattern: probe the data,
-pick a static shape, jit once.
+This is the "shape bucket" pattern: probe the data, pick a static shape,
+jit once.
 """
 from __future__ import annotations
 
@@ -76,16 +75,12 @@ def probe_counts(cfg: SystemConfig, gray, depth):
                 1.0 / c.dataset.depth_scale_factor
             )
         pyr = c.pyramid
-        if pyr.use_pallas_canny and jax.default_backend() == "tpu":
-            from revo_tpu.ops.pallas.canny_kernel import canny_pallas as canny
-        else:
-            canny = ops.canny
         out = []
         g, d = gray, depth
         prev = None
         for lvl in range(pyr.n_levels):
             src = ops.gaussian_blur(g) if pyr.gaussian_before_canny else g
-            edges = canny(src, pyr.canny_threshold1, pyr.canny_threshold2)
+            edges = ops.canny(src, pyr.canny_threshold1, pyr.canny_threshold2)
             patch = pyr.dist_patch_sizes[lvl]
             cnts, occ = ops.patch_histogram(edges, patch)
             if pyr.use_edge_hist and lvl > 0:

@@ -1,4 +1,4 @@
-"""Configuration dataclasses for the TPU-native REVO framework.
+"""Configuration dataclasses of the REVO re-implementation.
 
 Mirrors the reference's two-file YAML config split (algorithm settings +
 dataset/sensor settings) parsed by ``REVOConfig`` (system.h:32-83),
@@ -13,8 +13,6 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
-
-import yaml
 
 
 @dataclass(frozen=True)
@@ -62,37 +60,24 @@ class PyramidConfig:
     pyr_max_lvl: int = 0  # finest level tracked (camerapyr.h:46)
     undistort: bool = False
     use_edge_hist: bool = True  # BMVC17 edge fill-in (camerapyr.h:62)
-    # Edge-cloud stream compaction: "rank" = per-slot rank-select (block
-    # summaries located by a scatter-bincount + MXU ones-triangle cumsum,
-    # depth fused into the final (capacity,)-row take), "scatter" = cumsum
-    # + per-pixel scatter (XLA's TPU scatter serializes over all H*W
-    # lanes: 2.6 ms for level 0 alone single-seq).  The original rank form
-    # lost single-seq (10.0 vs 8.0 ms/step); after the bincount locator,
-    # triangular-matmul cumsum and fused depth it wins BOTH contexts
-    # (v5e ab_track: rank 3.64 ms/step vs scatter 6.78; ab_batch B=8
-    # rank 18.0 ms).  "rank_sort" further replaces the in-block one-hot
-    # rank->position contraction (O(BLK^2) multiply-reduces per block,
-    # the largest frontend fusion at B=8) with a lane sort keyed on the
-    # in-block cumsum — measured 7.34 -> 6.46 ms/vary-chained-step at B=8
-    # cap50, 9.5 ms at exact-fit vs 10.9 (scripts/probes/ab_table.py).
-    # "rank_sort2" packs the lane index into the sort key's low byte
-    # (key*256 + lane, < 2^24 so f32-exact) so the sort carries one fewer
-    # operand.  All four forms are bit-identical (fuzz-gated in test_ops);
-    # rank_sort2 measured device step 7.31 vs 7.41 ms at B=8 (trace_batch,
-    # sorts 0.73 -> 0.62 ms) and is the default.
+    # Edge-cloud stream compaction: "scatter" = cumsum + per-pixel
+    # scatter; "rank" = per-slot rank-select (block summaries located by a
+    # scatter-bincount + ones-triangle matmul cumsum, depth fused into the
+    # final (capacity,)-row take); "rank_sort" replaces the in-block
+    # rank->position contraction with a lane sort keyed on the in-block
+    # cumsum; "rank_sort2" packs the lane index into the sort key's low
+    # byte (key*256 + lane, < 2^24 so f32-exact).  All four forms are
+    # bit-identical (fuzz-gated in test_ops).  The default was chosen on a
+    # previous accelerator; its GPU verdict is open (ROADMAP Y4).
     compaction: str = "rank_sort2"
     n_percentage: float = 0.3  # occupancy threshold for fill-in
     # Patch sizes of the per-level edge-occupancy histogram; "chosen in a way
     # that we always get 32x24 patches for 3 levels starting from 640x480"
     # (imgpyramidrgbd.cpp:50).
     dist_patch_sizes: Tuple[int, ...] = (20, 10, 5)
-    # Fixed capacity of the per-level edge point cloud (TPU static shapes;
+    # Fixed capacity of the per-level edge point cloud (static shapes;
     # replaces the dynamic leftCols() of imgpyramidrgbd.cpp:226).
     edge_capacity: Tuple[int, ...] = (16384, 8192, 4096)
-    # On TPU, run Canny as the fused Pallas kernel (3x faster than the XLA
-    # composition and closer to OpenCV under the platform's forced
-    # --xla_allow_excess_precision: 30 vs 569 differing pixels at 640x480).
-    use_pallas_canny: bool = True
 
     @property
     def n_levels(self) -> int:
@@ -115,84 +100,51 @@ class OptimizerConfig:
     use_edge_filter: bool = True  # revo_settings.yaml USE_EDGE_FILTER
     # Solver implementation: "lm" reproduces the reference's data-dependent
     # accept/reject schedule (optimizer.cpp:250-307) with nested while_loops;
-    # "gn_fixed" is the TPU-fast fixed-iteration variant (SURVEY.md §7
+    # "gn_fixed" is the bounded fixed-iteration variant (SURVEY.md §7
     # design stance): one evaluation per iteration, where-gated accept, LM
-    # damping halved/quadrupled — same fixed point, ~3x fewer device loop
+    # damping halved/escalated — same fixed point, fewer device loop
     # iterations.  ATE parity is gated in tests/test_solver_modes.py.
     solver: str = "lm"
     # Per-level gn_fixed iteration counts, index 0 = finest.  The solve is
     # coarse-to-fine, so by the finest (most expensive) level the pose is
-    # nearly converged: 6 its at L0 measured ATE-identical to 12 (0.970 mm
-    # to 1 um on the bench chain; scripts/probes/ab_iters.py, schedules
-    # 12,12,12 / 8,* / 6,* all 0.970) while saving the most costly evals.
-    # Gated by the gn-vs-lm parity battery (test_solver_modes).
+    # nearly converged: 6 iterations at L0 track as accurately as 12 on the
+    # CPU ATE gates while saving the most costly evaluations.  Gated by the
+    # gn-vs-lm parity battery (test_solver_modes).
     fixed_iters: Tuple[int, ...] = (6, 10, 12, 12, 12, 12)  # per level
-    # Accumulate the 6x6 normal equations with the Pallas LGSX reduction
-    # kernel (ops/pallas/lgsx.py) instead of XLA einsums.
-    use_pallas_lgsx: bool = False
-    # Bilinear-sampling gather formulation for the residual pass.  XLA's
-    # TPU gather emitter choice is context-dependent (the windowed form is
-    # 60x faster in isolation but ~30x slower inside the tracker step), so
-    # the implementation is a measured knob: "quad" (ONE row take from the
-    # keyframe's packed (H, W, 12) 2x2-neighborhood table — the row-gather
-    # cost is per-index overhead, not bytes, so packing quarters it;
-    # measured 12.6 -> 10.7 ms/step on v5e, ab_track), "take4" (four row
-    # takes), "taps"/"window"/"pair" (lax.gather slice forms); "quad_lf"
-    # routes the same quad sample through the lane-fold custom_vmap take
-    # (interp._take_rows_lanefold) — bit-identical to "quad" (gated in
-    # test_ops), neutral single-seq (3.58 vs 3.54 ms/step), and the
-    # measured winner for the BATCHED emitter (ab_batch B=8 re-
-    # adjudication on the fixed use_quad gate: lf 12.7 ms/batched-step
-    # vs quad 17.4, fr 14.8, ob 17.6, lf12 58.5).
+    # Bilinear-sampling gather formulation for the residual pass: "quad"
+    # (ONE row take from the keyframe's packed 2x2-neighborhood table),
+    # "take4" (four row takes), "taps"/"window"/"pair" (lax.gather slice
+    # forms); "quad_lf" routes the same quad sample through the lane-fold
+    # custom_vmap take (interp._take_rows_lanefold), bit-identical to
+    # "quad" (gated in test_ops).  The forms were tuned to a previous
+    # accelerator's gather emitter; their GPU verdict is open (ROADMAP Y3).
     bilinear_impl: str = "quad_lf"
     # Storage layout of the packed quad table (ops.edt.quad_structure):
     # "hw12" (H, W, 12), "flat" (H*W, 12), "t" (12, H*W), "flat16"
     # (H*W, 16) padded, "flatbf" (H*W, 12) bfloat16, "dt4"/"dt4bf"
     # (H*W, 4) dt-only taps with the Jacobian gradient derived from the
-    # bilinear dt surface (interp.bilinear_sample_dtquad).  Measured
-    # emitter knob: the batched step's gather cost is index-count x
-    # row-bytes sensitive down to ~16-byte rows — bf16 12-component rows
-    # nearly halved it (ab_batch B=8: flatbf 28.3 ms/batched-step vs
-    # flat 47.4, flat16 54.5) and the dt-only rows cut it again (dt4bf
-    # 20.0 vs flatbf 25.7 with the fused-depth compaction; dt4 == dt4bf,
-    # so 16 B/row is already at the per-index floor ~4 ns.  ab_track
-    # single-seq: dt4bf 6.78 ms/step vs flatbf 7.57).  Residuals are
-    # bit-identical across forms (modulo bf16 rounding); dt4's surface
-    # gradient is the exact GN linearization of the sampled interpolant
-    # and is ATE-parity gated (test_solver_modes, test_ops).  "flatbf"
-    # remains the reference central-difference-gradient form; f32 "flat"
-    # for exact-reference numerics.
+    # bilinear dt surface (interp.bilinear_sample_dtquad).  Narrower rows
+    # make the per-point gather cheaper.  Residuals are bit-identical
+    # across forms (modulo bf16 rounding); dt4's surface gradient is the
+    # exact GN linearization of the sampled interpolant and is ATE-parity
+    # gated (test_solver_modes, test_ops).  "flatbf" remains the reference
+    # central-difference-gradient form; f32 "flat" for exact-reference
+    # numerics.
     quad_form: str = "dt4bf"
     # Lane-select form for the fold-hoisted batched solve (solver.
     # gn_level_fixed): with the B per-sequence dt4 tables pre-folded into
     # one shared operand outside the while loop, each vmapped lane must
     # pick its own sequence's 4 components per gathered row.  "onehot"
     # keeps the full (H*W, B*4) row per gather and selects with an exact
-    # one-hot multiply-reduce — the gathered row and the (N, B, 4) select
-    # intermediate both grow with B (the documented remaining B=32
-    # superlinearity, STATUS round-3).  "flat" folds the lane into the
-    # gather index instead: table reshaped (H*W*B, 4) outside the loop,
-    # row index = base*B + lane — same single-index 2-D gather form, one
-    # 4-component row per point, no select at all.  Bit-identical
-    # (selects the same stored values; gated in test_solver_modes).
-    # MEASURED A LOSS on v5e at B=8 (trace_batch, 2026-08-20): device
-    # step 10.97 ms vs 6.97 onehot — the in-loop gather emits ~2.2 ns/row
-    # for narrow 8-byte rows from the (H*W*B, 4) operand vs 0.87 ns/row
-    # for the wide (1, B*4) slice; the one-hot select is nearly free at
-    # B=8.  Fourth failed reformulation of this gather (interp.py:93
-    # lists the other three); kept as a documented A/B knob.
+    # one-hot multiply-reduce (the row and the (N, B, 4) select grow with
+    # B).  "flat" folds the lane into the gather index instead: table
+    # reshaped (H*W*B, 4) outside the loop, row index = base*B + lane — one
+    # 4-component row per point, no select.  Bit-identical (gated in
+    # test_solver_modes); the GPU verdict is open (ROADMAP Y3, S4).
     lane_select: str = "onehot"
-    # SE(3) point-projection arithmetic inside the residual pass.  "fma"
-    # (default): nine scalar-broadcast f32 FMAs — exact f32; on v5e this
-    # HALVES tracking ATE vs the bf16 MXU default (2.06 -> 0.97 mm,
-    # scripts/probes/ab_precision.py) at ~0.5 ms/step B=8 (device 6.85 ->
-    # 7.41 ms; Precision.HIGH 8.13 and an optimization_barrier'd FMA 7.46
-    # were both measured worse).  "bf16": the plain MXU matmul — the
-    # throughput point when mm-level ATE is not required.
-    proj_impl: str = "fma"
     # 6x6 damped-normal-equation solve: "ldlt" = unrolled pivot-free LDL^T
-    # (straight-line code; jnp.linalg.solve's general LU lowers to a serial
-    # while loop on TPU), "linalg" = jnp.linalg.solve.
+    # (straight-line code), "linalg" = jnp.linalg.solve (a general LU with
+    # a pivoting loop).
     solve6_impl: str = "ldlt"
 
 
@@ -405,13 +357,69 @@ def load_config(
 
 
 def _load_yaml(path: str) -> dict:
-    """Load plain YAML or OpenCV FileStorage YAML ("%YAML:1.0" header)."""
+    """Load a flat OpenCV FileStorage / YAML settings file."""
     with open(path) as f:
-        text = f.read()
-    # OpenCV FileStorage header is not valid YAML 1.1; strip it.
-    if text.startswith("%YAML"):
-        text = "\n".join(
-            line for line in text.splitlines() if not line.startswith("%YAML")
-        )
-    loaded = yaml.safe_load(text)
-    return loaded or {}
+        return parse_settings(f.read())
+
+
+def parse_settings(text: str) -> dict:
+    """Parse the flat YAML dialect of the settings files.
+
+    Supports what OpenCV FileStorage and the reference configs use:
+    ``key: value`` lines, a ``%YAML`` header and ``---`` markers, ``#``
+    comments, quoted or bare strings, ints, floats, true/false, and block
+    (``- item``) lists.  Values are typed like a YAML safe load: ``150`` is
+    an int, ``0.3`` a float, ``"x"`` a string.
+    """
+    out: dict = {}
+    key = None  # the key of an open block list
+    for raw in text.splitlines():
+        line = _strip_comment(raw).rstrip()
+        if not line.strip() or line.startswith(("%", "---", "...")):
+            continue
+        stripped = line.lstrip()
+        if stripped.startswith("- ") or stripped == "-":
+            if key is None:
+                raise ValueError(f"list item outside a list: {raw!r}")
+            out[key].append(_scalar(stripped[1:].strip()))
+            continue
+        name, sep, value = line.partition(":")
+        if not sep or line[0].isspace():
+            raise ValueError(f"not a 'key: value' line: {raw!r}")
+        name, value = name.strip(), value.strip()
+        if value == "":
+            out[name] = []
+            key = name
+        else:
+            out[name] = _scalar(value)
+            key = None
+    # An empty block list reads as null, like a YAML load of "key:".
+    return {k: (None if v == [] else v) for k, v in out.items()}
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment that is not inside quotes."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "\"'":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1].isspace()):
+            return line[:i]
+    return line
+
+
+def _scalar(text: str):
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        return text[1:-1]
+    low = text.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    for kind in (int, float):
+        try:
+            return kind(text)
+        except ValueError:
+            pass
+    return text

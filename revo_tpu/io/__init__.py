@@ -1,7 +1,7 @@
 """Host-side IO: dataset parsing, synthetic scenes, prefetch pipeline.
 
 Replaces the reference's io/ layer (iowrapperRGBD.cpp) minus live sensors
-(out of scope for the TPU core — SURVEY.md §2.1 sensor rows; the dataset and
+(out of scope for the device core — SURVEY.md §2.1 sensor rows; the dataset and
 recorded-capture modalities are kept, live-sensor bridges are documented
 interfaces).
 """

@@ -2,43 +2,28 @@
 
 Provides PNG decode and a threaded prefetch pipeline that replaces the
 reference's IO producer thread (iowrapperRGBD.cpp:257-352).  Falls back to
-OpenCV decode transparently when the shared library hasn't been built
-(``make -C native``).
+OpenCV decode transparently when the shared library cannot be built or
+loaded (it is compiled from native/revo_io.cpp on first use).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-    "librevo_io.so",
-)
+from revo_tpu.io.native_build import load_native
+
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _load_lib(build_if_missing: bool = True) -> Optional[ctypes.CDLL]:
+def _load_lib() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) and build_if_missing:
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.dirname(_LIB_PATH)],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            return None
-    if not os.path.exists(_LIB_PATH):
+    lib = load_native("librevo_io.so")
+    if lib is None:
         return None
-    lib = ctypes.CDLL(_LIB_PATH)
     lib.revo_png_info.restype = ctypes.c_int
     lib.revo_png_info.argtypes = [
         ctypes.c_char_p,

@@ -10,17 +10,12 @@ built here (no Eigen/Boost in the image, zero egress — BASELINE.md).
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from typing import Optional
 
 import numpy as np
 
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-    "librevo_oracle.so",
-)
+from revo_tpu.io.native_build import load_native
+
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -49,26 +44,12 @@ class _Params(ctypes.Structure):
     ]
 
 
-def _load_lib(build_if_missing: bool = True) -> Optional[ctypes.CDLL]:
+def _load_lib() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) and build_if_missing:
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.dirname(_LIB_PATH),
-                 "librevo_oracle.so"],
-                check=True,
-                capture_output=True,
-                timeout=180,
-            )
-        except Exception:
-            return None
-    if not os.path.exists(_LIB_PATH):
-        return None
-    try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+    lib = load_native("librevo_oracle.so")
+    if lib is None:
         return None
     lib.revo_oracle_run.restype = ctypes.c_double
     lib.revo_oracle_run.argtypes = [

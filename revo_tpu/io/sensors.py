@@ -17,19 +17,14 @@ misbehaving sensor once, replay it deterministically.
 from __future__ import annotations
 
 import ctypes
-import os
 import struct
-import subprocess
 from dataclasses import dataclass
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-    "librevo_sensor.so",
-)
+from revo_tpu.io.native_build import load_native
+
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -44,21 +39,13 @@ GREY = fourcc("GREY")
 Z16 = fourcc("Z16 ")
 
 
-def _load_lib(build_if_missing: bool = True) -> Optional[ctypes.CDLL]:
+def _load_lib() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) and build_if_missing:
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.dirname(_LIB_PATH), "librevo_sensor.so"],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception:
-            return None
-    if not os.path.exists(_LIB_PATH):
+    lib = load_native("librevo_sensor.so")
+    if lib is None:
         return None
-    lib = ctypes.CDLL(_LIB_PATH)
     lib.rs_use_replay_shim.argtypes = [ctypes.c_int]
     lib.rs_replay_register.restype = ctypes.c_int
     lib.rs_replay_register.argtypes = [ctypes.c_char_p, ctypes.c_char_p]

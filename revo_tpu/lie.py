@@ -1,6 +1,6 @@
 """Pure-JAX Lie-group operations for SO(3) and SE(3).
 
-TPU-native replacement for the Sophus library used by the reference
+Replacement for the Sophus library used by the reference
 (/root/reference/thirdparty/Sophus/sophus/so3.hpp, se3.hpp).  The reference's
 runtime uses only ``SE3f(R,t)``, ``SE3f::exp`` (se3.hpp:723-767), ``SE3f::log``
 (se3.hpp:201-229) and accessors; here we provide the full group API (exp, log,
@@ -19,29 +19,26 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Small-angle switch point.  For float32, theta^4 < eps means the Taylor
-# expansion is exact to machine precision.
-# On TPU, default matmul precision is bf16: a 0.4% relative error on
-# metric quantities (rotations, translations, point coordinates) that
-# measurably degrades trajectory accuracy (ab_precision: ATE 2.06 ->
-# 0.97 mm under f32 matmuls).  The 3x3/3-vector products here use ONE
-# einsum each at f32 precision: an unrolled elementwise form was tried
-# and REVERTED — it emits ~60 tiny scalar HLO ops per pose update, which
-# cost ~1 ms/chained-step inside the LM while body (single-seq chain
-# 2.88 -> 3.78 ms measured), while the single 3-pass MXU dot is one op.
+# Pose products ask for full f32 precision explicitly: at default
+# precision an accelerator may run an f32 matmul in TF32 (GPU, 10 mantissa
+# bits) or bf16, a ~1e-3 relative error on rotations and translations that
+# accumulates as drift along a pose chain.  Each product stays ONE einsum
+# (one HLO op) rather than an unrolled elementwise form.
 _MM_PREC = jax.lax.Precision.HIGHEST
 
 
-def _mm(a, b):
-    """(..., 3, 3) @ (..., 3, 3) at exact-f32 precision, one HLO op."""
+def mm(a, b):
+    """(..., n, k) @ (..., k, m) at exact-f32 precision, one HLO op."""
     return jnp.einsum("...ik,...kj->...ij", a, b, precision=_MM_PREC)
 
 
-def _mv(a, v):
-    """(..., 3, 3) @ (..., 3) at exact-f32 precision, one HLO op."""
+def mv(a, v):
+    """(..., n, k) @ (..., k) at exact-f32 precision, one HLO op."""
     return jnp.einsum("...ij,...j->...i", a, v, precision=_MM_PREC)
 
 
+# Small-angle switch point.  For float32, theta^4 < eps means the Taylor
+# expansion is exact to machine precision.
 _EPS = 1e-8
 
 
@@ -83,7 +80,7 @@ def exp_so3(omega: jax.Array) -> jax.Array:
         (1.0 - jnp.cos(theta_safe)) / (theta_safe * theta_safe),
     )
     W = hat_so3(omega)
-    W2 = _mm(W, W)
+    W2 = mm(W, W)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=omega.dtype), W.shape)
     return eye + a[..., None, None] * W + b[..., None, None] * W2
 
@@ -174,10 +171,10 @@ def exp_se3(xi: jax.Array):
     R = exp_so3(omega)
     b, c = _so3_left_jacobian_terms(omega)
     W = hat_so3(omega)
-    W2 = _mm(W, W)
+    W2 = mm(W, W)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=xi.dtype), W.shape)
     V = eye + b[..., None, None] * W + c[..., None, None] * W2
-    t = _mv(V, upsilon)
+    t = mv(V, upsilon)
     return R, t
 
 
@@ -197,21 +194,21 @@ def log_se3(R: jax.Array, t: jax.Array) -> jax.Array:
         (1.0 - half * jnp.cos(half) / jnp.sin(half)) / theta_sq,
     )
     W = hat_so3(omega)
-    W2 = _mm(W, W)
+    W2 = mm(W, W)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=R.dtype), W.shape)
     Vinv = eye - 0.5 * W + e[..., None, None] * W2
-    upsilon = _mv(Vinv, t)
+    upsilon = mv(Vinv, t)
     return jnp.concatenate([upsilon, omega], axis=-1)
 
 
 def compose(R1, t1, R2, t2):
     """(R1,t1) * (R2,t2): first apply 2, then 1."""
-    return _mm(R1, R2), _mv(R1, t2) + t1
+    return mm(R1, R2), mv(R1, t2) + t1
 
 
 def inverse(R, t):
     Rt = jnp.swapaxes(R, -1, -2)
-    return Rt, -_mv(Rt, t)
+    return Rt, -mv(Rt, t)
 
 
 def transform_points(R, t, pts):
@@ -225,7 +222,7 @@ def adjoint_se3(R: jax.Array, t: jax.Array) -> jax.Array:
     With the [upsilon, omega] convention:
         Ad = [[R, hat(t) R], [0, R]]
     """
-    tR = _mm(hat_so3(t), R)
+    tR = mm(hat_so3(t), R)
     top = jnp.concatenate([R, tR], axis=-1)
     zeros = jnp.zeros_like(R)
     bottom = jnp.concatenate([zeros, R], axis=-1)

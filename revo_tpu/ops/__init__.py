@@ -1,4 +1,4 @@
-"""Batched, fixed-shape image/geometry ops for the TPU pipeline.
+"""Batched, fixed-shape image/geometry ops of the VO pipeline.
 
 Each module replaces a native (C++/OpenCV/SSE) component of the reference
 with a jit/vmap-friendly JAX implementation (SURVEY.md §2.3):
@@ -15,7 +15,7 @@ with a jit/vmap-friendly JAX implementation (SURVEY.md §2.3):
 
 from revo_tpu.ops.filters import gaussian_blur, pyr_down, sobel
 from revo_tpu.ops.depth import subsample_depth_with_holes
-from revo_tpu.ops.canny import canny
+from revo_tpu.ops.canny import canny, canny_candidates, hysteresis
 from revo_tpu.ops.edt import (
     distance_transform,
     build_optimization_structure,
@@ -32,6 +32,8 @@ __all__ = [
     "sobel",
     "subsample_depth_with_holes",
     "canny",
+    "canny_candidates",
+    "hysteresis",
     "distance_transform",
     "build_optimization_structure",
     "keyframe_structure",

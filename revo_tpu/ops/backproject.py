@@ -2,7 +2,7 @@
 
 Replaces the dynamic-size edge cloud of ImgPyramidRGBD::addLevelEdge
 (imgpyramidrgbd.cpp:199-226): every edge pixel with valid depth becomes a 3-D
-point X = Z*(x-cx)/fx, Y = Z*(y-cy)/fy, Z.  TPU requires static shapes, so
+point X = Z*(x-cx)/fx, Y = Z*(y-cy)/fy, Z.  Jitted code needs static shapes, so
 the cloud is a (P, 3) array with a validity mask; compaction uses
 jnp.nonzero(size=P), which pads with index 0 (masked out downstream).
 """
@@ -25,10 +25,10 @@ class EdgeCloud(NamedTuple):
 _BLK = 128  # rank-select block; all level sizes (307200/76800/19200) divide
 
 
-def _cumsum_rows_mxu(x: jax.Array) -> jax.Array:
+def _cumsum_rows_matmul(x: jax.Array) -> jax.Array:
     """Inclusive cumsum of (L, C) float32 rows along axis 0 via 128-chunk
-    ones-triangle matmuls (jnp.cumsum lowers to an O(L*L) reduce_window on
-    TPU for long axes).  Exact for integer-valued f32 inputs."""
+    ones-triangle matmuls at HIGHEST precision.  Exact for integer-valued
+    f32 inputs."""
     L, c = x.shape
     pad = (-L) % _BLK
     m = (L + pad) // _BLK
@@ -81,9 +81,8 @@ def _compact_rank(
     """Gather-form stream compaction: identical output to _compact_scatter,
     computed per OUTPUT slot instead of per pixel.
 
-    XLA's TPU scatter is a per-index serial loop over all H*W lanes
-    (~21 ms/step for B=8 at 640x480); this form replaces it with dense
-    compare-reduces.  Each output slot j knows its target edge rank q_j in
+    A scatter touches every one of the H*W pixels per index; this form
+    replaces it with dense compare-reduces.  Each output slot j knows its target edge rank q_j in
     closed form (q_j = j, or the inverse of the decimation map on
     overflow); the q_j-th edge is located with a two-level rank structure:
     per-128-pixel-block counts locate the block (one (cap, nblocks)
@@ -94,8 +93,7 @@ def _compact_rank(
     ``aux`` (optional (H, W) float32, e.g. depth) rides the same rank
     structure: its per-(block, rank) value joins the offset table so the
     final take fetches (offset, aux) rows together — the caller's
-    separate per-point aux gather (~7 ns/index on the TPU emitter)
-    disappears.  Returns (idx, lane_valid, count[, aux_at_idx]).
+    separate per-point aux gather disappears.  Returns (idx, lane_valid, count[, aux_at_idx]).
     """
     n = valid_px.size
     pad = (-n) % _BLK  # invalid padding cannot change any rank
@@ -103,9 +101,9 @@ def _compact_rank(
     v = jnp.pad(valid_px.ravel().astype(jnp.float32), (0, pad)).reshape(
         nb, _BLK
     )
-    # In-block inclusive rank as a triangular MXU matmul: jnp.cumsum lowers
-    # to an O(n*window) reduce_window on TPU (~0.5 ms/step at B=8); the
-    # (nb, 128) @ (128, 128) ones-triangle is exact in f32 (counts <= 128).
+    # In-block inclusive rank as a triangular matmul: the (nb, 128) @
+    # (128, 128) ones-triangle has 0/1 operands and integer sums <= 128, so
+    # it is exact at any matmul precision (accumulated in f32).
     tri = jnp.triu(jnp.ones((_BLK, _BLK), jnp.float32))
     C = jax.lax.dot_general(
         v, tri, (((1,), (0,)), ((), ())),
@@ -135,9 +133,9 @@ def _compact_rank(
     # q_j is the LARGEST rank with fwd(rank) <= j (fwd monotone), the
     # integer condition blockcum[b] <= q_j is equivalent to
     # fwd(blockcum[b]) <= j — so instead of an O(cap x nb) compare-reduce
-    # (~0.8 ms/step at B=8 640x480) both block_of and the edges-before
-    # count come from one tiny scatter-bincount of the nb block summaries
-    # followed by a cumsum over slots (MXU ones-triangle).
+    # both block_of and the edges-before count come from one tiny
+    # scatter-bincount of the nb block summaries followed by a cumsum over
+    # slots (ones-triangle matmul).
     # Blocks at-or-after the last edge (blockcum == count) precede no valid
     # slot (q <= count-1 always when over; when not over they only affect
     # j >= count lanes, which are zeroed as invalid) — pin them to the
@@ -155,7 +153,7 @@ def _compact_rank(
             mode="drop",
         )
     )
-    cum = _cumsum_rows_mxu(tab)[:capacity]  # (cap, 2)
+    cum = _cumsum_rows_matmul(tab)[:capacity]  # (cap, 2)
     block_of = cum[:, 0].astype(jnp.int32)
     prev = cum[:, 1].astype(jnp.int32)
     k = q - prev  # in-block rank
@@ -214,9 +212,8 @@ def _compact_rank(
             auxpos = (hitf * a[:, None, :]).sum(axis=2)  # (nb, BLK)
 
     # Final row take via the lane-fold custom_vmap form: under vmap a
-    # plain take becomes a batch-dim gather (~7.3 ns/row measured at B=8,
-    # trace_batch fusion.10/9/6 = 1.50 ms/step); the fold keeps the fast
-    # single-row 2-D emitter by stacking the B tables along lanes
+    # plain take becomes a batch-dim gather; the fold keeps the
+    # single-row 2-D gather by stacking the B tables along lanes
     # ((nb*BLK, B*2) at B=8 = 16-lane rows), same trick as the solver's
     # quad_lf.  Bit-identical: the primal is the plain take and the
     # batched one-hot select is exact (single nonzero term per row).

@@ -1,6 +1,6 @@
 """Canny edge detector as vectorized XLA ops.
 
-TPU-native replacement for cv::Canny(gray, t1, t2, apertureSize=3,
+Replacement for cv::Canny(gray, t1, t2, apertureSize=3,
 L2gradient=true) as called by the reference (imgpyramidrgbd.cpp:105-108,184).
 Follows OpenCV's algorithm:
 
@@ -8,7 +8,8 @@ Follows OpenCV's algorithm:
 - squared-L2 magnitude compared against squared thresholds (OpenCV squares
   the thresholds when L2gradient=true),
 - sector-quantized non-maximum suppression with OpenCV's exact comparison
-  rules (strict vs non-strict per sector, tan 22.5 deg sector boundaries),
+  rules (strict vs non-strict per sector, OpenCV's fixed-point tan 22.5 deg
+  sector boundaries),
 - hysteresis by iterative dilation of strong edges through the weak mask
   (the parallel fixed-point formulation of OpenCV's BFS; identical result).
 
@@ -23,7 +24,9 @@ import jax.numpy as jnp
 
 from revo_tpu.ops.filters import sobel
 
-_TAN22 = 0.4142135623730950488  # tan(pi/8); tan(3pi/8) = _TAN22 + 2
+# OpenCV's fixed-point tan(22.5 deg): round(tan(pi/8) * 2**15).
+_CANNY_SHIFT = 15
+_TG22 = 13573
 
 
 def _shift(x: jax.Array, dy: int, dx: int) -> jax.Array:
@@ -44,13 +47,11 @@ def _dilate8(mask: jax.Array) -> jax.Array:
     )
 
 
-def canny(
-    gray: jax.Array,
-    threshold1: float = 150.0,
-    threshold2: float = 100.0,
-    max_hysteresis_iters: int | None = None,
-) -> jax.Array:
-    """Boolean edge map of an (H, W) integer-valued gray image.
+def canny_candidates(
+    gray: jax.Array, threshold1: float = 150.0, threshold2: float = 100.0
+):
+    """Sobel + L2 magnitude + sector NMS + double threshold of an (H, W)
+    integer-valued gray image; returns (candidates, strong) bool masks.
 
     ``threshold1``/``threshold2`` follow cv::Canny's argument order: the
     smaller is the low (hysteresis) threshold, the larger the high one —
@@ -60,11 +61,8 @@ def canny(
     high = float(max(threshold1, threshold2))
     low_sq, high_sq = low * low, high * high
 
-    gx, gy = sobel(gray)
+    gx, gy = sobel(gray, border="replicate")  # cv::Canny's Sobel border
     mag = gx * gx + gy * gy  # squared L2, integer-exact in f32
-
-    ax = jnp.abs(gx)
-    ay = jnp.abs(gy)
 
     # Neighbor magnitudes (zero outside the image, like OpenCV's zero border
     # around its magnitude rows).
@@ -77,12 +75,16 @@ def canny(
     m_dl = _shift(mag, 1, -1)
     m_dr = _shift(mag, 1, 1)
 
-    # Sector selection (OpenCV canny.cpp): y < x*tan22.5 -> horizontal;
-    # y > x*tan67.5 -> vertical; else diagonal with sign s = sign(gx*gy).
-    tg22x = ax * _TAN22
-    tg67x = tg22x + 2.0 * ax
+    # Sector selection in OpenCV's fixed-point form (canny.cpp): with
+    # x = |gx|, y = |gy| << 15 and tg22x = x * TG22, the pixel is
+    # horizontal if y < tg22x, vertical if y > tg22x + (x << 16), else
+    # diagonal with s = sign(gx * gy).  Integer arithmetic keeps the
+    # compare exact on every backend (no FMA contraction can flip it).
+    ax = jnp.abs(gx).astype(jnp.int32)
+    ay = jnp.abs(gy).astype(jnp.int32) << _CANNY_SHIFT
+    tg22x = ax * _TG22
     horiz = ay < tg22x
-    vert = ay > tg67x
+    vert = ay > tg22x + (ax << (_CANNY_SHIFT + 1))
     s_pos = (gx * gy) >= 0  # s = +1 when gradients share sign
 
     # OpenCV comparisons: horizontal (m > left && m >= right),
@@ -101,18 +103,25 @@ def canny(
 
     cand = keep & (mag > low_sq)  # weak + strong candidates
     strong = cand & (mag > high_sq)
+    return cand, strong
 
-    # Hysteresis: grow `strong` through `cand` (8-connectivity) to fixpoint.
-    # Each while iteration applies UNROLL dilations back-to-back, cutting the
-    # device loop-iteration overhead ~UNROLLx; the fixpoint check still makes
-    # the result exact (identical to OpenCV's BFS).
-    h, w = gray.shape
+
+def hysteresis(cand: jax.Array, strong: jax.Array) -> jax.Array:
+    """Grow ``strong`` through ``cand`` (8-connectivity) to the fixpoint.
+
+    Each while iteration applies UNROLL dilations back-to-back; the
+    fixpoint check still makes the result exact (identical to OpenCV's
+    BFS): the output is every candidate 8-connected to a strong pixel.
+    The guard of h*w dilations never binds: every dilation short of the
+    fixpoint adds a pixel (the Triton kernel's relaunch loop has the
+    same guard).
+    """
+    h, w = cand.shape
     UNROLL = 8
-    max_iters = max_hysteresis_iters if max_hysteresis_iters else (h + w)
 
     def cond(state):
         reach, prev_count, it = state
-        return (reach.sum() != prev_count) & (it < max_iters)
+        return (reach.sum() != prev_count) & (it < h * w)
 
     def body(state):
         reach, _, it = state
@@ -124,5 +133,26 @@ def canny(
     # Scalar carries are derived from the input so their sharding/varying
     # axes match the loop outputs (required under shard_map).
     zero = strong.sum() * 0
-    reach, _, _ = jax.lax.while_loop(cond, body, (strong, zero - 1, zero))
+    with jax.named_scope("canny_hysteresis"):
+        reach, _, _ = jax.lax.while_loop(cond, body, (strong, zero - 1, zero))
     return reach
+
+
+def canny(
+    gray: jax.Array, threshold1: float = 150.0, threshold2: float = 100.0
+) -> jax.Array:
+    """Boolean edge map of an (H, W) integer-valued gray image
+    (cv::Canny(gray, t1, t2, 3, L2gradient=true)).
+
+    The hysteresis fixpoint is picked per lowering platform: on a GPU the
+    Pallas/Triton tile kernel (ops.hysteresis_triton), which beat the XLA
+    while loop end to end on the H100 (PERF.md); elsewhere the XLA form.
+    Both give the identical edge map.
+    """
+    with jax.named_scope("canny_nms"):
+        cand, strong = canny_candidates(gray, threshold1, threshold2)
+    from revo_tpu.ops.hysteresis_triton import hysteresis_triton
+
+    return jax.lax.platform_dependent(
+        cand, strong, cuda=hysteresis_triton, default=hysteresis
+    )

@@ -37,10 +37,9 @@ def patch_histogram(edges: jax.Array, patch_size: int):
     whole patches like the integer division in the reference.
 
     Block pooling is expressed as two small matmuls with static 0/1
-    indicator matrices (counts = Ih @ E @ Iw^T): the reshape-to-4D reduce
-    regroups 20-px blocks across both sublanes and lanes, which costs more
-    in relayouts on TPU than the MXU does for the (Hp,H)x(H,W)x(W,Wp)
-    contraction.  Counts are < 2^24, so the f32 matmul is exact.
+    indicator matrices (counts = Ih @ E @ Iw^T) instead of a
+    reshape-to-4D reduce.  Counts are < 2^24, so the f32 matmul at HIGHEST
+    precision is exact.
     """
     h, w = edges.shape
     hp, wp = h // patch_size, w // patch_size
@@ -102,8 +101,8 @@ def fill_in_edges(
     # gated by the patch count at parent coords // parent_patch_size with
     # the reference's index clamp (imgpyramidrgbd.cpp:130-140).  Both the
     # odd-coordinate selection and the count-grid upsample are expressed as
-    # static 0/1 selector matmuls (MXU) — strided slices / index gathers of
-    # this shape lower to ~0.8 ms scalarized gathers at 640x480.
+    # static 0/1 selector matmuls (at HIGHEST precision) rather than
+    # strided slices / index gathers.
     so_h = jnp.asarray(_odd_selector(h, ph))
     so_w = jnp.asarray(_odd_selector(w, pw))
     par = (

@@ -1,6 +1,6 @@
 """Exact Euclidean distance transform, fused with the gradient structure.
 
-TPU-native replacement for cv::distanceTransform(255-edges, CV_DIST_L2,
+Replacement for cv::distanceTransform(255-edges, CV_DIST_L2,
 CV_DIST_MASK_PRECISE) + ImgPyramidRGBD::buildOptimizationStructure
 (imgpyramidrgbd.cpp:241,255-276).  The keyframe "optimization structure" is
 an (H, W, 3) tensor with channels (gx, gy, dt) where
@@ -12,7 +12,7 @@ an (H, W, 3) tensor with channels (gx, gy, dt) where
 (The reference's sign convention is the negative gradient; the GN solver's
 update sign compensates — see optimizer.cpp:258 `b = -ls.b`.)
 
-Algorithm (exact, banded, VPU-friendly — no sequential lower-envelope stack):
+Algorithm (exact, banded, elementwise — no sequential lower-envelope stack):
 
 1. Column pass: per-column nearest-edge distance via log-doubling min-plus
    relaxations.  O(H*W*log H).
@@ -45,9 +45,7 @@ def _column_distances(edges: jax.Array) -> jax.Array:
     d[y] = min distance to an edge within the last 2^k rows, via
     d <- min(d, shift_down(d, s) + s) with s doubling.  ceil(log2 H)
     fully-vectorized passes per direction replace a 2x H-step lax.scan
-    whose per-iteration latency dominated keyframe cost on TPU (~30 ms of
-    the 36 ms make_keyframe at 640x480; the doubling form makes it
-    sub-ms).  Exact: any vertical displacement decomposes into a subset
+    whose per-iteration latency would dominate keyframe cost.  Exact: any vertical displacement decomposes into a subset
     of the doubling shifts in one direction, and no shift path
     undercounts.  Works on (..., H, W); _BIG where a column has no edge.
     """
@@ -104,7 +102,7 @@ def _row_edt_sq_banded(gsq: jax.Array, r: jax.Array, chunk: int = 64) -> jax.Arr
     bound).  while_loop over offset chunks; chunk c covers offsets
     [c*chunk+1, (c+1)*chunk] on both sides via two traced-start
     dynamic_slices + static sub-slices, so the loop body is pure
-    shift+add+min VPU work with no gathers.
+    shift+add+min elementwise work with no gathers.
     """
     n, w = gsq.shape
     npad = w + chunk
@@ -195,13 +193,12 @@ def quad_structure(struct: jax.Array, form: str = "hw12") -> jax.Array:
 
     Q[y, x] = concat(S[y, x], S[y, x+1], S[y+1, x], S[y+1, x+1]) — the full
     2x2 bilinear neighborhood packed contiguously, so the solver's sample
-    needs ONE row gather per pass instead of four (XLA's TPU gather
-    scalarizes per row; the per-row cost is index overhead, not bytes).
+    needs ONE row gather per pass instead of four (a gather's cost is
+    largely per index, not per byte).
     Built once per keyframe level.  The last row/column are edge-padded;
     they are unreachable because sample coords are clipped to (w-2, h-2).
 
-    ``form`` picks the storage layout (OptimizerConfig.quad_form, a
-    measured knob for the gather emitter): "hw12" = (H, W, 12),
+    ``form`` picks the storage layout (OptimizerConfig.quad_form): "hw12" = (H, W, 12),
     "flat" = (H*W, 12), "t" = (12, H*W), "flat16" = (H*W, 16) with each
     tap padded to 4 lanes (64-byte aligned rows), "flatbf" = (H*W, 12)
     bfloat16 (half the row bytes; samples upcast after the gather).

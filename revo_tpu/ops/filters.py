@@ -1,9 +1,9 @@
 """Separable filters: Gaussian blur, pyramid downsampling, Sobel.
 
-TPU-native replacements for cv::GaussianBlur / cv::pyrDown / cv::Sobel used
+Replacements for cv::GaussianBlur / cv::pyrDown / cv::Sobel used
 by the reference pyramid builder (imgpyramidrgbd.cpp:82,101-108) and Canny.
-All filters are expressed as small separable convolutions so XLA maps them
-onto fused VPU ops; borders use REFLECT_101 (OpenCV's default
+All filters are expressed as small separable convolutions that XLA fuses
+into elementwise kernels; borders default to REFLECT_101 (OpenCV's default
 BORDER_REFLECT_101) via jnp.pad(mode="reflect").
 """
 from __future__ import annotations
@@ -15,19 +15,22 @@ import jax
 import jax.numpy as jnp
 
 
-def _sep_filter(img: jax.Array, kx: jax.Array, ky: jax.Array) -> jax.Array:
-    """Separable 2-D correlation with REFLECT_101 borders on an (H, W) image.
+def _sep_filter(
+    img: jax.Array, kx: jax.Array, ky: jax.Array, pad_mode: str = "reflect"
+) -> jax.Array:
+    """Separable 2-D correlation on an (H, W) image, borders by
+    ``jnp.pad(mode=pad_mode)``: "reflect" is OpenCV's BORDER_REFLECT_101,
+    "edge" its BORDER_REPLICATE.
 
-    Implemented as shifted adds over a reflect-padded array rather than
-    lax.conv: single-channel convolutions lower poorly on TPU (profiled at
-    ~1.7 ms per pyrDown at 640x480 vs ~0.1 ms for the fused shift-adds —
-    the MXU wants channel dimensions this image pipeline doesn't have).
+    Implemented as shifted adds over the padded array, which XLA fuses
+    into one elementwise kernel (the image has no channel dimension for a
+    convolution to use).
     """
     nx = kx.shape[0]
     ny = ky.shape[0]
     rx = nx // 2
     ry = ny // 2
-    x = jnp.pad(img, ((ry, ry), (rx, rx)), mode="reflect")
+    x = jnp.pad(img, ((ry, ry), (rx, rx)), mode=pad_mode)
     h, w = img.shape
     # Rows (axis 1) with kx, then cols (axis 0) with ky.  Kernel lengths are
     # static (shape info), taps may be traced scalars — XLA constant-folds
@@ -77,9 +80,8 @@ def _pyr_band(n: int) -> np.ndarray:
     Row i sums kernel taps at source columns 2i-2..2i+2 with out-of-range
     columns reflected (|j| for j<0, 2n-2-j for j>n-1) — exactly
     cv::pyrDown's blur+decimate along one axis, as one matrix so the whole
-    pyrDown is two MXU matmuls (XLA lowers the strided-slice decimation of
-    a separable-filter formulation to a ~0.8 ms index gather at 640x480;
-    the banded matmul is ~10 us)."""
+    pyrDown is two matmuls at HIGHEST precision rather than a strided-slice
+    decimation."""
     m = (n + 1) // 2
     band = np.zeros((m, n), np.float32)
     for i in range(m):
@@ -120,13 +122,15 @@ _SOBEL_D = np.array([-1.0, 0.0, 1.0], dtype=np.float32)
 _SOBEL_S = np.array([1.0, 2.0, 1.0], dtype=np.float32)
 
 
-def sobel(img: jax.Array):
-    """3x3 Sobel derivatives (gx, gy) with REFLECT_101 borders.
+def sobel(img: jax.Array, border: str = "reflect101"):
+    """3x3 Sobel derivatives (gx, gy).
 
     Matches cv::Sobel(src, CV_16S, 1|0, 0|1, ksize=3) exactly for integer
-    -valued inputs (the Canny front end, canny.cpp in OpenCV).
+    -valued inputs, with OpenCV's default BORDER_REFLECT_101 or, with
+    ``border="replicate"``, BORDER_REPLICATE (what cv::Canny uses).
     """
+    mode = {"reflect101": "reflect", "replicate": "edge"}[border]
     x = img.astype(jnp.float32)
-    gx = _sep_filter(x, jnp.asarray(_SOBEL_D), jnp.asarray(_SOBEL_S))
-    gy = _sep_filter(x, jnp.asarray(_SOBEL_S), jnp.asarray(_SOBEL_D))
+    gx = _sep_filter(x, jnp.asarray(_SOBEL_D), jnp.asarray(_SOBEL_S), mode)
+    gy = _sep_filter(x, jnp.asarray(_SOBEL_S), jnp.asarray(_SOBEL_D), mode)
     return gx, gy

@@ -56,15 +56,14 @@ def bilinear_sample_quad(
 ) -> jax.Array:
     """bilinear_sample against a packed 2x2-neighborhood quad table
     (ops.edt.quad_structure): ONE row take fetches the whole 2x2xC
-    neighborhood, quartering the dominant scalarized-gather cost.
+    neighborhood in one index instead of four.
 
     The table form is inferred from the shape (the storage layout is a
-    measured knob — XLA's TPU gather emitter prefers different operand
-    layouts in different surrounding programs, see OptimizerConfig.quad_form):
+    knob, see OptimizerConfig.quad_form):
       - (H, W, 4*C): 3-D table, reshaped to rows here.
       - (H*W, 4*C): pre-flattened rows ("flat"; needs h, w).
       - (4*C, H*W): transposed ("t"; needs h, w) — the minormost-index
-        layout the batched-step gather emitter otherwise copies into.
+        layout a batched gather may otherwise copy into.
     Bit-identical weights/formula to bilinear_sample.
     """
     if quad.ndim == 3:
@@ -89,9 +88,7 @@ def bilinear_sample_quad(
         q = jnp.take(flat, base, axis=1).T  # (N, 4*C)
     else:
         # Under vmap the plain take becomes a batch-dim gather; the
-        # lane-folded custom_vmap forms above restore the fast 2-D
-        # emitter (flattening the batch into ROW offsets instead was
-        # measured STRICTLY WORSE: B=8 step 61.5 -> 75.7 ms on v5e).
+        # lane-folded custom_vmap forms above restore the 2-D form.
         q = _QUAD_TAKES[batched_take](flat, base)  # (N, 4*C)
     if q.dtype != u.dtype:
         q = q.astype(u.dtype)  # "flatbf" bf16 storage upcasts post-gather
@@ -138,15 +135,14 @@ def bilinear_sample_dtquad(
     holding all B sequences' rows, in one of two layouts inferred from
     ``quad.shape[0]`` (set by OptimizerConfig.lane_select at the fold
     site, solver.gn_level_fixed): "onehot" = (H*W, B*4) lane-minor wide
-    rows — the take fetches the full (1, B*4) row (the fast single-index
-    2-D emitter — same gather the _take_rows_lanefold vmap rule emits)
+    rows — the take fetches the full (1, B*4) row (a single-index 2-D
+    gather — the same gather the _take_rows_lanefold vmap rule emits)
     and an exact one-hot select keeps this lane's 4 components; "flat" =
     (H*W*B, 4) lane-major — the lane rides the gather index (row =
     base*B + lane), no select at all.  The point of either: the FOLD
     happened in the caller, outside any while_loop — the in-rule fold is
-    re-materialized as a 19.6 MB layout copy in EVERY solver iteration at
-    B=8 640x480 (trace_batch copy.927+reshape.840: 0.5 ms/step), growing
-    superlinearly with B (the B=32 scaling cliff).  See
+    re-materialized as a layout copy in EVERY solver iteration, growing
+    superlinearly with B.  See
     solver.gn_level_fixed's hoisted batching rule.
     """
     ix = jnp.floor(u).astype(jnp.int32)
@@ -161,10 +157,7 @@ def bilinear_sample_dtquad(
             # Flat lane-major fold (H*W*B, 4): the lane rides the gather
             # index (row = base*B + lane), so each point fetches exactly
             # its own 4 components — no wide row, no select intermediate
-            # (OptimizerConfig.lane_select="flat").  MEASURED A LOSS at
-            # B=8 (10.97 vs 6.97 ms device step): narrow 8-byte rows emit
-            # ~2.2 ns/row vs 0.87 for the wide (1, B*4) slice — see the
-            # config.py lane_select docstring.
+            # (OptimizerConfig.lane_select="flat").
             if quad.shape[0] % (h * w) != 0:
                 raise ValueError(
                     f"lane-folded quad table rows {quad.shape[0]} not a "
@@ -206,17 +199,10 @@ def _take_rows(flat: jax.Array, base: jax.Array) -> jax.Array:
 
 def _take_rows_ob(flat: jax.Array, base: jax.Array) -> jax.Array:
     """_take_rows with optimization_barriers isolating the gather from its
-    producers/consumers.  The TPU gather emitter choice is context-
-    dependent: the solver's out-of-loop sys0 evaluation emits a 2.1x
-    slower gather than the bit-identical in-while form (trace_batch,
-    1885 vs 880 us at B=8 L0) because it fuses with the frame-build
-    producers; the barrier was meant to pin the standalone form.
+    producers/consumers, so the gather is emitted standalone rather than
+    fused with the frame-build producers.
 
-    NOTE: the first A/B of this form (76.8 ms vs 19.6 at B=8) was
-    INVALID — tracker.py's exact-match use_quad gate sent every suffixed
-    quad variant the (H, W, 3) struct, so it measured the take4 fallback,
-    not the barrier.  Re-A/B against the fixed gate before trusting any
-    verdict on this form."""
+    Its speed has no valid measurement yet (ROADMAP Y3)."""
     flat_b, base_b = jax.lax.optimization_barrier((flat, base))
     return jax.lax.optimization_barrier(jnp.take(flat_b, base_b, axis=0))
 
@@ -230,24 +216,15 @@ def _take_rows_lanefold(flat: jax.Array, base: jax.Array) -> jax.Array:
 def _take_rows_lanefold_vmap(axis_size, in_batched, flat, base):
     """Batched quad-row gather without gather batching dims.
 
-    XLA's TPU gather emitter costs ~24 ns/index for the batched form
-    (operand (B, HW, 12) + 2 start components) vs ~10 ns/index for the
-    plain 2-D single-sequence form (hlo_batch vs hlo_step, v5e) — at
-    B=8 x 16384 points x ~10 solver evaluations that emitter difference
-    alone is ~15 ms/step.  This rule folds the B per-sequence tables
+    A batched gather (operand (B, HW, 12) + 2 start components) can cost
+    more per index than the plain 2-D single-sequence form.  This rule
+    folds the B per-sequence tables
     along LANES into one shared (HW, B*12) operand so the per-evaluation
     gather is again a single-row-index 2-D gather; each output row then
     keeps its own sequence's 12 lanes via a one-hot multiply-reduce.
 
-    MEASURED A LOSS on v5e (ab_batch): 81.8 ms/batched-step vs 46.7 for
-    the plain batch-dim take — the wide (1, B*12) slice rows do not hit
-    the fast single-sequence emitter.  Kept (with the lf12 variant) as
-    A/B forms documenting the third failed reformulation of this gather;
-    see the interp.py:93 comment for the flat-offset one.
-
-    CAVEAT: that A/B may predate the tracker.py use_quad gating fix
-    (suffixed quad variants silently measured the take4 fallback) —
-    re-A/B before trusting the verdict.
+    Kept (with the lf12 variant) as A/B forms of this gather; their GPU
+    verdict is open (ROADMAP Y3).
     """
     flat_b, base_b = in_batched
     if not (flat_b and base_b):
@@ -289,8 +266,7 @@ def _take_rows_lanefold12_vmap(axis_size, in_batched, flat, base):
     """Lane-folded batched gather, (1, 12)-slice variant: same shared
     (HW, B*12) operand but two start components (row, lane=12*b) and
     slice_sizes (1, c) — gathers 1/B the bytes of the (1, B*c) form at
-    the cost of a second index component.  MEASURED A LOSS on v5e
-    (ab_batch): 79.5 ms/batched-step vs 46.7 for the batch-dim take."""
+    the cost of a second index component."""
     flat_b, base_b = in_batched
     if not (flat_b and base_b):
         out = jax.vmap(
@@ -329,16 +305,8 @@ def _take_rows_foldrow_vmap(axis_size, in_batched, flat, base):
     """Batched row take with the batch folded into the ROW index: the
     (B, HW, C) stacked tables reshape (free) to one (B*HW, C) operand and
     the per-sequence bases get a b*HW offset, so the gather is the plain
-    single-index 2-D form instead of the batch-dim form.
-
-    History: a flat-offset fold measured a loss at 48-byte f32 rows
-    pre-dt4 (61.5 -> 75.7 ms B=8, when it was wired inside the plain
-    take's vmap path).  A second A/B of THIS form at 8-byte dt4bf rows
-    (75.8 vs 17.7) was INVALID — tracker.py's exact-match use_quad gate
-    sent every suffixed quad variant the (H, W, 3) struct, so it
-    measured the take4 fallback.  Re-A/B against the fixed gate: the
-    single-index emitter is ~3.5 ns/idx single-seq vs ~6.7 batch-dim,
-    so a genuine fold win would cut the batched solver gather ~2x."""
+    single-index 2-D form instead of the batch-dim form.  Its GPU verdict
+    is open (ROADMAP Y3)."""
     flat_b, base_b = in_batched
     if not (flat_b and base_b):
         out = jax.vmap(
@@ -367,9 +335,9 @@ def gather2d(img: jax.Array, iy: jax.Array, ix: jax.Array) -> jax.Array:
     """img[iy, ix] for (N,) int32 indices via a windowed lax.gather.
 
     (H, W) -> (N,); (H, W, C) -> (N, C).  Advanced integer indexing (and
-    jnp.take on a flattened image) lowers to a slow scalarized gather on
-    TPU; the explicit (1, 1[, C]) slice gather takes the fast path —
-    measured ~66x faster at 24k points on v5e.  Start indices are clipped
+    jnp.take on a flattened image) may lower to a scalarized gather; the
+    explicit (1, 1[, C]) slice gather states the windowed form.  Start
+    indices are clipped
     (mode="clip"), matching jnp.take's default clamp.
     """
     starts = jnp.stack([iy, ix], axis=-1)  # (N, 2)
@@ -405,8 +373,7 @@ def bilinear_sample_taps(
     """bilinear_sample via four gather2d (1, 1, C)-slice gathers.
 
     A third gather emission for in-context A/B against the 4-take and
-    windowed forms (XLA's TPU gather emitter choice is context-dependent;
-    see the solver notes)."""
+    windowed forms."""
     h, w = img.shape[0], img.shape[1]
     ix = jnp.floor(u).astype(jnp.int32)
     iy = jnp.floor(v).astype(jnp.int32)
@@ -470,9 +437,8 @@ def bilinear_sample_window_ob(
     """bilinear_sample_window with an optimization_barrier isolating the
     gather from its producers/consumers.
 
-    XLA's TPU gather emitter choice is context-dependent (fast standalone
-    gather vs scalarized loop fusion when fused with producers); the
-    barrier pins the standalone form inside large fused steps."""
+    The barrier keeps the gather standalone (unfused with its producers)
+    inside large fused steps."""
     h, w = img.shape[0], img.shape[1]
     ix = jnp.floor(u).astype(jnp.int32)
     iy = jnp.floor(v).astype(jnp.int32)
@@ -509,9 +475,7 @@ def bilinear_sample_window(
     """Same math as bilinear_sample via ONE lax.gather of (2, 2, C) windows.
 
     Each point fetches its whole 2x2xC neighborhood in a single gather
-    slice instead of four row gathers — the row gathers scalarize on TPU
-    while the windowed slice gather runs at memory speed (~66x faster per
-    residual pass at 24k points on v5e).
+    slice instead of four row gathers.
     """
     h, w = img.shape[0], img.shape[1]
     ix = jnp.floor(u).astype(jnp.int32)

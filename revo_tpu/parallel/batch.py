@@ -105,7 +105,7 @@ def _vo_scan_step(
 
     res = tracker.track_frames(state.kf, frame, state.R, state.t, cfg)
     T_kf_n = lie.matrix_from_rt(res.R, res.t)
-    T_w_curr = state.kf.T_w_k @ T_kf_n
+    T_w_curr = lie.mm(state.kf.T_w_k, T_kf_n)
 
     if cfg.tracker.check_tracking_results:
         new_kf = tracker.assess_tracking_quality(
@@ -118,12 +118,12 @@ def _vo_scan_step(
     # Catastrophic pose-jump gate (host-loop twin: VOSystem._is_jump),
     # evaluated on the INITIAL track like the host loop: a wrong-basin
     # convergence keeps the residual low, so only the motion betrays it.
-    d = jnp.linalg.inv(state.prev_T_w) @ T_w_curr
+    d = lie.mm(jnp.linalg.inv(state.prev_T_w), T_w_curr)
     cos_a = jnp.clip((jnp.trace(d[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
     jump = (jnp.linalg.norm(d[:3, 3]) > trk.max_jump_translation) | (
         jnp.arccos(cos_a) > trk.max_jump_rotation
     )
-    T_w_coast = state.prev_T_w @ state.T_nm1_n
+    T_w_coast = lie.mm(state.prev_T_w, state.T_nm1_n)
 
     if cfg.tracker.scan_relocalization:
         # Host-loop order (VOSystem.process_frame): a lost/jumped frame
@@ -203,18 +203,18 @@ def _vo_scan_step(
         promote, promoted_branch, normal_branch, (state, frame, res)
     )
     T_kf_n = lie.matrix_from_rt(res.R, res.t)
-    T_w_curr = kf.T_w_k @ T_kf_n
+    T_w_curr = lie.mm(kf.T_w_k, T_kf_n)
 
     # Merge the three outcomes: relocalized > coasting > tracked.
     if cfg.tracker.scan_relocalization:
         kf = jax.tree.map(lambda a, b: jnp.where(found, a, b), kf_reloc, kf)
         T_kf_n_r = lie.matrix_from_rt(sel.R, sel.t)
         T_kf_n = jnp.where(found, T_kf_n_r, T_kf_n)
-        T_w_curr = jnp.where(found, kf_reloc.T_w_k @ T_kf_n_r, T_w_curr)
+        T_w_curr = jnp.where(found, lie.mm(kf_reloc.T_w_k, T_kf_n_r), T_w_curr)
         res = jax.tree.map(lambda a, b: jnp.where(found, a, b), sel, res)
     T_w_curr = jnp.where(still_lost, T_w_coast, T_w_curr)
     T_kf_n = jnp.where(
-        still_lost, jnp.linalg.inv(kf.T_w_k) @ T_w_coast, T_kf_n
+        still_lost, lie.mm(jnp.linalg.inv(kf.T_w_k), T_w_coast), T_kf_n
     )
 
     # On promotion the voting set freezes to the rolling ring's pre-current
@@ -244,8 +244,8 @@ def _vo_scan_step(
     # Motion prior (system.cpp:267-271).  On a coasted frame
     # T_w_curr = prev_T_w @ T_nm1_n, so the prior is unchanged — constant
     # velocity persists exactly like the host loop's early return.
-    T_nm1_n = jnp.linalg.inv(state.prev_T_w) @ T_w_curr
-    T_init = T_kf_n @ T_nm1_n
+    T_nm1_n = lie.mm(jnp.linalg.inv(state.prev_T_w), T_w_curr)
+    T_init = lie.mm(T_kf_n, T_nm1_n)
 
     if cfg.init_from_last_pose:
         # Host early return leaves R/t untouched on a still-lost frame.

@@ -1,7 +1,7 @@
 """Device-mesh and multi-host runtime helpers.
 
 The reference has no distributed capability (SURVEY.md §2.2); here the
-idiomatic JAX stack: ``jax.distributed`` initialization for multi-host pods
+idiomatic JAX stack: ``jax.distributed`` initialization for multi-host runs
 (driven by env, no custom transport code) and named-mesh construction whose
 axes the rest of revo_tpu shards over:
 
@@ -25,8 +25,9 @@ def maybe_distributed_init(
     """Initialize jax.distributed when running multi-host.
 
     Arguments default from the standard env (JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID, or cloud-TPU auto-detect).  Returns
-    True when a multi-host runtime was initialized.
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID); nothing is auto-detected, so a
+    cluster must be described explicitly.  Returns True when a multi-host
+    runtime was initialized.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -43,10 +44,6 @@ def maybe_distributed_init(
             num_processes=n,
             process_id=pid,
         )
-        return True
-    if os.environ.get("TPU_WORKER_HOSTNAMES", "") not in ("", "localhost"):
-        # Cloud TPU pod: args are auto-detected.
-        jax.distributed.initialize()
         return True
     return False
 

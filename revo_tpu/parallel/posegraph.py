@@ -48,7 +48,7 @@ def pose_graph_residuals(
     """Per-edge 6-vector residuals log(M^-1 Ti^-1 Tj); (E, 6)."""
     Ti = poses[edges.i]
     Tj = poses[edges.j]
-    E = jnp.linalg.inv(edges.T_meas) @ jnp.linalg.inv(Ti) @ Tj
+    E = lie.mm(lie.mm(jnp.linalg.inv(edges.T_meas), jnp.linalg.inv(Ti)), Tj)
     return lie.log_se3(E[..., :3, :3], E[..., :3, 3])
 
 
@@ -61,8 +61,12 @@ def _assemble(poses: jax.Array, edges: PoseGraphEdges, n: int):
     w = edges.weight[:, None, None]
 
     # Block contributions: Jj = +Ad, Ji = -Ad.
-    AtA = jnp.einsum("eki,ekj->eij", Ad, Ad) * w  # (E, 6, 6) = Ad^T Ad
-    Atr = jnp.einsum("eki,ek->ei", Ad, r) * edges.weight[:, None]  # (E, 6)
+    AtA = jnp.einsum(
+        "eki,ekj->eij", Ad, Ad, precision=jax.lax.Precision.HIGHEST
+    ) * w  # (E, 6, 6) = Ad^T Ad
+    Atr = jnp.einsum(
+        "eki,ek->ei", Ad, r, precision=jax.lax.Precision.HIGHEST
+    ) * edges.weight[:, None]  # (E, 6)
 
     H = jnp.zeros((n, n, 6, 6), poses.dtype)
     b = jnp.zeros((n, 6), poses.dtype)
@@ -91,7 +95,7 @@ def _solve_and_update(
     xi = jnp.linalg.solve(Hd, bd).reshape(n, 6)
     dR, dt = lie.exp_se3(xi)
     dT = lie.matrix_from_rt(dR, dt)
-    return dT @ poses
+    return lie.mm(dT, poses)
 
 
 @functools.partial(jax.jit, static_argnames=("iters",))
@@ -156,7 +160,7 @@ def trajectory_to_edges(
     n = poses.shape[0]
     i = jnp.arange(n - 1, dtype=jnp.int32)
     j = i + 1
-    T_meas = jnp.linalg.inv(poses[:-1]) @ poses[1:]
+    T_meas = lie.mm(jnp.linalg.inv(poses[:-1]), poses[1:])
     return PoseGraphEdges(
         i=i, j=j, T_meas=T_meas, weight=jnp.ones(n - 1, jnp.float32)
     )

@@ -14,14 +14,14 @@ error, which the pose-graph pass absorbs.
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 
+from revo_tpu import lie
 from revo_tpu.config import SystemConfig
-from revo_tpu.parallel.batch import vo_scan
+from revo_tpu.parallel.batch import vo_scan_batched
 from revo_tpu.parallel.posegraph import (
     PoseGraphEdges,
     optimize_pose_graph,
@@ -57,28 +57,9 @@ def track_segments(
     axis: str = "seq",
 ) -> jax.Array:
     """Track each (S, L, H, W) segment independently; returns segment-local
-    poses (S, L, 4, 4) anchored at identity per segment."""
-    if mesh is None:
-        return jax.jit(
-            jax.vmap(lambda g, d: vo_scan(g, d, cfg)[0])
-        )(seg_grays, seg_depths)
-
-    from jax.sharding import PartitionSpec as P
-
-    @functools.partial(
-        jax.shard_map, mesh=mesh, in_specs=(P(axis), P(axis)),
-        out_specs=P(axis),
-    )
-    def run(g, d):
-        def one(i, acc):
-            poses, _, _ = vo_scan(g[i], d[i], cfg)
-            return acc.at[i].set(poses)
-
-        acc0 = jnp.zeros((g.shape[0], g.shape[1], 4, 4), jnp.float32)
-        acc0 = acc0 + g[0, 0, 0, 0] * 0
-        return jax.lax.fori_loop(0, g.shape[0], one, acc0)
-
-    return jax.jit(run)(seg_grays, seg_depths)
+    poses (S, L, 4, 4) anchored at identity per segment (segments are
+    sequences to ``vo_scan_batched``)."""
+    return vo_scan_batched(seg_grays, seg_depths, cfg, mesh=mesh, axis=axis)
 
 
 @jax.jit
@@ -92,10 +73,10 @@ def stitch_segments(seg_poses: jax.Array) -> jax.Array:
     """
     s, l = seg_poses.shape[0], seg_poses.shape[1]
     ends = seg_poses[:, -1]  # (S, 4, 4)
-    prefix = jax.lax.associative_scan(jnp.matmul, ends, axis=0)  # inclusive
+    prefix = jax.lax.associative_scan(lie.mm, ends, axis=0)  # inclusive
     eye = jnp.broadcast_to(jnp.eye(4, dtype=seg_poses.dtype), (1, 4, 4))
     anchors = jnp.concatenate([eye, prefix[:-1]], axis=0)  # (S, 4, 4)
-    glob = jnp.einsum("sij,sljk->slik", anchors, seg_poses)  # (S, L, 4, 4)
+    glob = lie.mm(anchors[:, None], seg_poses)  # (S, L, 4, 4)
     # Drop duplicated overlap frames: keep segment 0 fully, others from 1.
     first = glob[0]
     rest = glob[1:, 1:].reshape(-1, 4, 4)
@@ -114,6 +95,12 @@ def track_long_sequence(
     (-> optional pose-graph relaxation over consecutive-frame edges)."""
     sg, sd = split_segments(grays, depths, n_segments)
     seg_poses = track_segments(sg, sd, cfg, mesh=mesh)
+    return stitch_trajectory(seg_poses, refine=refine)
+
+
+def stitch_trajectory(seg_poses: jax.Array, refine: bool = False) -> jax.Array:
+    """Segment-local poses (S, L, 4, 4) -> one global trajectory, with an
+    optional pose-graph relaxation over consecutive-frame edges."""
     poses = stitch_segments(seg_poses)
     if refine:
         n = poses.shape[0]
@@ -121,7 +108,7 @@ def track_long_sequence(
         edges = PoseGraphEdges(
             i=i,
             j=i + 1,
-            T_meas=jnp.linalg.inv(poses[:-1]) @ poses[1:],
+            T_meas=lie.mm(jnp.linalg.inv(poses[:-1]), poses[1:]),
             weight=jnp.ones(n - 1, jnp.float32),
         )
         poses = optimize_pose_graph(poses, edges, iters=5)

@@ -339,18 +339,34 @@ def _post_run_refinement(vo, poses, windowed_ba_flag, close_loops_flag):
         )
     return poses
 
-def _run_synthetic(cfg, n_frames: int, out_dir: str, seed: int, close_loops_flag: bool = False, live_view: bool = False, windowed_ba_flag: bool = False, export_ply: bool = False) -> int:
-    from revo_tpu.eval import absolute_trajectory_error, relative_pose_error
+def _run_synthetic(
+    cfg, n_frames: int, out_dir: str, seed: int, **flags
+) -> int:
     from revo_tpu.io.synthetic import SyntheticScene, render_sequence
+
+    rendered = render_sequence(
+        SyntheticScene(), cfg.camera, n_frames, seed=seed
+    )
+    track_synthetic(cfg, rendered, out_dir, **flags)
+    return 0
+
+
+def track_synthetic(
+    cfg, rendered, out_dir: str, close_loops_flag: bool = False,
+    live_view: bool = False, windowed_ba_flag: bool = False,
+    export_ply: bool = False,
+):
+    """Run ``VOSystem`` over rendered ``(gray, depth, T_w_c, timestamp)``
+    frames, write poses and plots to ``out_dir`` and report ATE/RPE against
+    the exact ground truth.  Returns (poses (N, 4, 4), ground truth
+    (N, 4, 4), ATE result, RPE result)."""
+    from revo_tpu.eval import absolute_trajectory_error, relative_pose_error
     from revo_tpu.system import VOSystem
 
-    scene = SyntheticScene()
     gt = []
 
     def frames():
-        for gray, depth, T, ts in render_sequence(
-            scene, cfg.camera, n_frames, seed=seed
-        ):
+        for gray, depth, T, ts in rendered:
             gt.append(T)
             yield gray, depth, ts
 
@@ -389,13 +405,30 @@ def _run_synthetic(cfg, n_frames: int, out_dir: str, seed: int, close_loops_flag
         f"RPE: {rpe.trans_rmse * 1000:.2f} mm / {rpe.rot_rmse_deg:.4f} deg "
         f"per frame"
     )
-    return 0
+    return poses, gt_arr, ate, rpe
+
+
+def select_backend(force_cpu: bool = False) -> str:
+    """Run on the CPU only when asked (``--cpu`` or ``JAX_PLATFORMS=cpu``);
+    otherwise require a GPU.  Returns the platform in use."""
+    import jax
+
+    if force_cpu:
+        jax.config.update("jax_platforms", "cpu")
+    cpu_requested = force_cpu or os.environ.get("JAX_PLATFORMS") == "cpu"
+    platform = jax.devices()[0].platform
+    if platform != "gpu" and not cpu_requested:
+        raise SystemExit(
+            f"revo_tpu.run: no GPU found (JAX platform {platform!r}); "
+            "pass --cpu or set JAX_PLATFORMS=cpu to run on the CPU"
+        )
+    return platform
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="revo_tpu.run",
-        description="TPU-native edge-based visual odometry",
+        description="Edge-based RGB-D visual odometry",
     )
     parser.add_argument("settings", nargs="?", help="algorithm settings yaml")
     parser.add_argument("dataset", nargs="?", help="dataset settings yaml")
@@ -416,19 +449,17 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--auto-capacity", type=int, default=0, metavar="N",
         help="calibrate edge-cloud capacities from the first N frames "
-             "(TPU shape-bucketing; see revo_tpu.autotune)",
+             "(static-shape bucketing; see revo_tpu.autotune)",
     )
     parser.add_argument(
         "--capacity-scale", type=float, default=1.15, metavar="S",
         help="capacity = S * observed max edge count (with --auto-capacity)."
              " S > 1 leaves headroom (exact tracking, the default); S < 1 "
              "deliberately undersizes so the uniform stride decimation "
-             "subsamples edges every frame — solver time scales ~linearly "
-             "with S while accuracy degrades only fractionally.  0.65 is "
-             "the measured Pareto knee (the bench headline default: stress "
-             "battery indistinguishable from exact fit at ~30%% more "
-             "throughput); 0.65 and 0.5 are accuracy-gated in tests "
-             "(see revo_tpu.autotune, scripts/probes/pareto*.py)",
+             "subsamples edges every frame, while accuracy degrades only "
+             "fractionally.  0.65 is the accuracy knee of the CPU sweep "
+             "(scripts/probes/pareto_ate.py); 0.65 and 0.5 are "
+             "accuracy-gated in tests (see revo_tpu.autotune)",
     )
     parser.add_argument(
         "--export-ply", action="store_true",
@@ -451,8 +482,8 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--cpu", action="store_true",
-        help="force the JAX CPU backend (also REVO_TPU_PLATFORM=cpu); "
-             "use when the accelerator is unreachable",
+        help="run on the JAX CPU backend (also JAX_PLATFORMS=cpu); "
+             "without it a GPU is required",
     )
     parser.add_argument(
         "--input-type", type=int, default=None, metavar="N",
@@ -482,11 +513,10 @@ def main(argv=None) -> int:
     )
     args = parser.parse_args(argv)
 
-    platform = os.environ.get("REVO_TPU_PLATFORM", "cpu" if args.cpu else "")
-    if platform:
-        import jax
+    select_backend(args.cpu)
+    from revo_tpu.utils.compile_cache import enable_compile_cache
 
-        jax.config.update("jax_platforms", platform)
+    enable_compile_cache()
 
     from revo_tpu.config import load_config
 

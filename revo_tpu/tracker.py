@@ -1,6 +1,6 @@
 """Coarse-to-fine SE(3) tracker + keyframe-selection logic.
 
-TPU-native replacement for TrackerNew (system/tracker.cpp): the coarse-to-
+Replacement for TrackerNew (system/tracker.cpp): the coarse-to-
 fine LM driver (trackFrames, tracker.cpp:294-353), the init-guess sanity
 check (checkInitializationValues, tracker.cpp:265-283) and the IROS17
 histogram-voting keyframe test (assessTrackingQuality, tracker.cpp:118-201)
@@ -15,7 +15,7 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-from revo_tpu import solver
+from revo_tpu import lie, solver
 from revo_tpu.config import SystemConfig
 from revo_tpu.frontend import Frame, Keyframe
 
@@ -331,7 +331,7 @@ def assess_tracking_quality(
     inv_est = jnp.linalg.inv(est_pose_w)
 
     def project_one(slot):
-        T = inv_est @ past.poses[slot]  # past-cam -> current-cam
+        T = lie.mm(inv_est, past.poses[slot])  # past-cam -> current-cam
         R, t = T[:3, :3], T[:3, 3]
         pts = past.points[slot]
         wxp = jnp.matmul(
@@ -365,10 +365,10 @@ def assess_tracking_quality(
     )
     edges = frame.levels[lvl].edges_orig  # returnOrigEdges (tracker.cpp:122)
 
-    # bincount over K+1 count levels as a dense one-hot contraction:
-    # jnp.bincount lowers to a per-index serial scatter-add on TPU
-    # (~H*W indices/frame); the (H*W, K+1) compare + matmul is exact
-    # (integer counts < 2^24 in f32) and pure VPU/MXU work.
+    # bincount over K+1 count levels as a dense one-hot contraction
+    # instead of a per-index scatter-add: the (H*W, K+1) 0/1 operands and
+    # integer sums < 2^24 make it exact at any matmul precision
+    # (accumulated in f32).
     levels = jnp.arange(k + 1, dtype=m.dtype)
     onehot = (m.ravel()[:, None] == levels[None, :]).astype(jnp.float32)
     histogram = jnp.einsum(

@@ -1,7 +1,7 @@
 """Offline visualization & model export (replaces the Pangolin GUI layer).
 
 The reference's live viewer (gui/Viewer.cc, MapDrawer.cc) is OpenGL and out
-of scope for the TPU core; its durable outputs — colored point-cloud PLY and
+of scope for the device core; its durable outputs — colored point-cloud PLY and
 keyframe-frusta PLY (MapDrawer.h saveModel :97-170) — are reproduced here as
 host-side exporters, plus a trajectory exporter.
 """

@@ -3,7 +3,7 @@
 The reference's live Pangolin viewer (gui/Viewer.cc) draws keyframe frusta,
 the trajectory polyline and the current camera; this module renders the
 same content offline — trajectory top-down + 3D, estimated-vs-ground-truth
-overlays, and an ATE error plot — for headless TPU runs.
+overlays, and an ATE error plot — for headless runs.
 """
 from __future__ import annotations
 

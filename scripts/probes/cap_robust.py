@@ -1,7 +1,7 @@
 """Probe: robustness of capacity decimation on the stress families —
 fast motion (5x handheld), depth noise + holes, curved surfaces.
 
-Pairs with cap_ate.py / cap_speed.py.
+Pairs with cap_ate.py.
 """
 import os
 import sys

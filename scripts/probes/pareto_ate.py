@@ -1,5 +1,5 @@
 """Pareto probe (accuracy side): capacity margin vs ATE across the full
-stress battery (VERDICT r4 #1).
+stress battery.
 
 For each autotune margin in {1.10, 0.80, 0.65, 0.50, 0.35}, runs the
 accuracy families the CI gates cover: the four 160x120 scene families

@@ -1,4 +1,4 @@
-"""Capacity auto-calibration (revo_tpu.autotune): the TPU shape-bucket
+"""Capacity auto-calibration (revo_tpu.autotune): the static shape-bucket
 pattern must not change tracking results while frames stay under the
 fitted capacities."""
 import numpy as np
@@ -43,9 +43,9 @@ class TestOverflowDegradation:
         assert ate < 0.03, f"decimated ATE {ate * 100:.2f} cm"
 
     def test_cap50_operating_point_fast_motion(self):
-        """The capacity-0.5 throughput point (margin=0.5: deliberate
-        uniform decimation, ~2x batched fps — see autotune docstring and
-        scripts/probes/cap_{ate,speed,robust}.py) holds up under the
+        """The capacity-0.5 operating point (margin=0.5: deliberate
+        uniform decimation — see autotune docstring and
+        scripts/probes/cap_{ate,robust}.py) holds up under the
         harshest stress family: 5x-handheld motion on the occlusion scene
         (probed 0.68 cm vs 0.50 exact)."""
         from revo_tpu.io.synthetic import box_scene, render_trajectory

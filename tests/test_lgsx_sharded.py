@@ -1,12 +1,9 @@
-"""Tests: Pallas LGSX reduction parity + point-sharded normal equations."""
-import dataclasses
-
+"""Tests: point-sharded normal equations (the LGSX reduction over a mesh)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from revo_tpu import ops, solver
-from revo_tpu.config import OptimizerConfig
 
 from test_solver import CAM, _wireframe_points, _rasterize_edges, _cloud_from_points
 
@@ -17,46 +14,6 @@ def _setup():
     struct = ops.keyframe_structure(jnp.asarray(edges))
     cloud = _cloud_from_points(pts, capacity=1024)
     return struct, cloud
-
-
-class TestPallasLGSX:
-    def test_matches_einsum_path(self):
-        struct, cloud = _setup()
-        a = solver.residual_system(
-            struct, cloud, CAM, jnp.eye(3), jnp.zeros(3), 30.0, 0.3, True,
-            use_pallas_lgsx=False,
-        )
-        b = solver.residual_system(
-            struct, cloud, CAM, jnp.eye(3), jnp.zeros(3), 30.0, 0.3, True,
-            use_pallas_lgsx=True,
-        )
-        # f32 accumulation-order differences only
-        np.testing.assert_allclose(np.asarray(a.A), np.asarray(b.A), rtol=1e-4, atol=1e-3)
-        np.testing.assert_allclose(
-            np.asarray(a.g), np.asarray(b.g), rtol=1e-4, atol=1e-4
-        )
-        assert float(a.err) == float(b.err) or abs(
-            float(a.err) - float(b.err)
-        ) < 1e-5
-        assert int(a.info.good) == int(b.info.good)
-
-    def test_lm_with_pallas_lgsx_converges(self):
-        from revo_tpu import lie
-
-        struct, _ = _setup()
-        pts_kf = _wireframe_points()
-        R_true, t_true = lie.exp_se3(
-            jnp.asarray([0.01, -0.008, 0.012, 0.004, -0.006, 0.005])
-        )
-        Ri, ti = lie.inverse(R_true, t_true)
-        pts_curr = np.asarray(pts_kf @ np.asarray(Ri).T + np.asarray(ti))
-        cloud = _cloud_from_points(pts_curr)
-        opt = dataclasses.replace(OptimizerConfig(), use_pallas_lgsx=True)
-        R, t, err, info = solver.lm_level(
-            struct, cloud, CAM, jnp.eye(3), jnp.zeros(3), opt, lvl=0
-        )
-        dt = np.asarray(R).T @ (np.asarray(t_true) - np.asarray(t))
-        assert np.linalg.norm(dt) < 0.02
 
 
 class TestPointSharded:

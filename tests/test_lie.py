@@ -142,7 +142,7 @@ class TestSE3:
         assert np.allclose(np.asarray(T)[:, 3], [0, 0, 0, 1])
 
     def test_jit_vmap(self):
-        """All ops must be jittable and vmappable (TPU-first requirement)."""
+        """All ops must be jittable and vmappable (device-first requirement)."""
         xi = jnp.asarray(ALL_TANGENTS)
         f = jax.jit(jax.vmap(lambda x: lie.log_se3(*lie.exp_se3(x))))
         out = f(xi)

@@ -190,7 +190,7 @@ class TestBilinear:
             np.testing.assert_allclose(got[k], want, rtol=2e-5, atol=2e-5)
 
     def test_window_gather_variant_matches(self):
-        """bilinear_sample_window (the TPU fast path used by the solver)
+        """bilinear_sample_window (a gather form of the solver)
         must agree with the 4-take formulation everywhere, including at
         clamped border coordinates."""
         from revo_tpu.ops.interp import (
@@ -382,7 +382,7 @@ class TestBackproject:
         assert int(np.asarray(cloud.valid).sum()) == 100
 
     def test_rank_compaction_matches_scatter(self):
-        """The rank-select compaction (the TPU fast path: dense compare-
+        """The rank-select compaction (the default path: dense compare-
         reduces instead of a per-pixel scatter) must reproduce the scatter
         compaction bit-exactly: same slots, same validity, same count —
         including the f32 uniform-decimation rounding on overflow and

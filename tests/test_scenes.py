@@ -263,10 +263,10 @@ class TestFullResolution:
     @pytest.mark.parametrize("margin", [0.65, 0.5])
     def test_ate_gate_640x480_decimated(self, margin):
         """The full-resolution gate at decimated capacity operating
-        points: 0.65 is the round-5 DEFAULT (the Pareto knee — bench
-        headline, scripts/probes/pareto.py + pareto_ate.py: stress
-        battery indistinguishable from exact-fit, ~30% more throughput),
-        0.5 the deeper throughput knob (run.py --capacity-scale).
+        points: 0.65 is the DEFAULT (the accuracy knee of the CPU sweep,
+        scripts/probes/pareto_ate.py: stress battery indistinguishable
+        from exact-fit), 0.5 the deeper decimation knob (run.py
+        --capacity-scale).
         Accuracy must stay inside the SAME gate as the exact-fit run
         (probed r5: 0.60 / 1.01 mm vs 0.59 exact)."""
         from revo_tpu.autotune import calibrate_capacities

@@ -120,6 +120,57 @@ class TestLMLevel:
         assert np.isfinite(np.asarray(R)).all()
         assert np.isfinite(np.asarray(t)).all()
 
+    def test_residual_system_matches_float64_reference(self):
+        """A, g, err of the fused residual pass against a float64 NumPy
+        transcription of calcErrorAndBuffers + calculateWarpUpdate
+        (optimizer.cpp:74-234) at a perturbed pose."""
+        pts = _wireframe_points()
+        struct = np.asarray(
+            ops.keyframe_structure(jnp.asarray(_rasterize_edges(pts, CAM)))
+        )
+        cloud = _cloud_from_points(pts)
+        R, t = lie.exp_se3(jnp.asarray([0.01, -0.006, 0.008, 0.004, 0.003, -0.002]))
+        got = solver.residual_system(
+            jnp.asarray(struct), cloud, CAM, R, t,
+            edge_distance=30.0, huber=0.3, use_edge_filter=True,
+        )
+
+        R64, t64 = np.asarray(R, np.float64), np.asarray(t, np.float64)
+        p = np.asarray(cloud.points, np.float64) @ R64.T + t64
+        u = p[:, 0] / p[:, 2] * CAM.fx + CAM.cx
+        v = p[:, 1] / p[:, 2] * CAM.fy + CAM.cy
+        ok = (u > 1) & (v > 1) & (u < CAM.width - 2) & (v < CAM.height - 2)
+        ok &= np.asarray(cloud.valid)
+        ui, vi = np.floor(u[ok]).astype(int), np.floor(v[ok]).astype(int)
+        du, dv = (u[ok] - ui)[:, None], (v[ok] - vi)[:, None]
+        s = struct.astype(np.float64)
+        samp = (du * dv * s[vi + 1, ui + 1] + (dv - du * dv) * s[vi + 1, ui]
+                + (du - du * dv) * s[vi, ui + 1]
+                + (1 - du - dv + du * dv) * s[vi, ui])
+        r = samp[:, 2]
+        keep = r <= 30.0
+        r, x, y, z = r[keep], *p[ok][keep].T
+        gx, gy = CAM.fx * samp[keep, 0], CAM.fy * samp[keep, 1]
+        w = np.where(r <= 0.3, 1.0, 0.3 / np.where(r == 0, 1.0, r))
+        iz, iz2 = 1.0 / z, 1.0 / (z * z)
+        J = np.stack([
+            iz * gx, iz * gy, -x * iz2 * gx - y * iz2 * gy,
+            -x * y * iz2 * gx - (1 + y * y * iz2) * gy,
+            (1 + x * x * iz2) * gx + x * y * iz2 * gy,
+            -y * iz * gx + x * iz * gy,
+        ], axis=-1)
+        n = len(r)
+        assert n > 300 and int(got.info.good) == n
+        np.testing.assert_allclose(
+            np.asarray(got.A), (J * w[:, None]).T @ J / n,
+            rtol=1e-4, atol=1e-4 * np.abs((J * w[:, None]).T @ J / n).max(),
+        )
+        np.testing.assert_allclose(
+            np.asarray(got.g), J.T @ (w * r) / n,
+            rtol=1e-4, atol=1e-4 * np.abs(J.T @ (w * r) / n).max(),
+        )
+        assert float(got.err) == pytest.approx(np.sum(w * r * r) / n, rel=1e-5)
+
     def test_residual_normalization_matches_reference(self):
         """err = sum(w r^2)/good; A,g divided by the same count
         (LGSX.h:320-326)."""
